@@ -1,4 +1,4 @@
-"""FM-index container with a TPU-friendly memory layout.
+"""FM-index container with a device-friendly memory layout.
 
 The reference keeps the classic bwa occ-interleaved BWT (128-symbol blocks:
 4x uint64 counts + 8x uint32 packed symbols, bwa/bwt.h:66-78) and uploads it

@@ -58,15 +58,16 @@ def write_bwt(path: str, fm_bwt_u8: np.ndarray, primary: int, L2: np.ndarray) ->
     words_all = (per_blk.reshape(-1, 16).astype(np.uint32) << shifts[None, :]) \
         .sum(axis=1, dtype=np.uint32)
     n_words = (seq_len + 15) // 16
+    # each block: its 4 uint64 counts, then its 8 words (the last block
+    # only the words that hold symbols); built whole and written once
+    body = np.empty((n_blocks, 16), dtype=np.uint32)
+    body[:, :8] = cum[:n_blocks].view(np.uint32).reshape(n_blocks, 8)
+    body[:, 8:] = words_all.reshape(n_blocks, 8)
+    body = body.reshape(-1)[:16 * n_blocks - (8 * n_blocks - n_words)]
     with open(path, "wb") as f:
         np.uint64(primary).tofile(f)
         L2[1:5].astype(np.uint64).tofile(f)
-        w = 0
-        for b in range(n_blocks):
-            cum[b].tofile(f)
-            take = min(8, n_words - w)
-            words_all[w:w + take].tofile(f)
-            w += take
+        body.tofile(f)
         cum[n_blocks].tofile(f)
 
 
@@ -187,7 +188,7 @@ def load_index(prefix: str, ignore_alt: bool = False) -> FMIndex:
     QNAME column names ALT contigs) marks those contigs is_alt, exactly as
     bwa_idx_load_bns does; ``ignore_alt`` mirrors bwa mem -j.
 
-    The TPU block layout is cached beside the artifacts as
+    The device block layout is cached beside the artifacts as
     ``<prefix>.tpu.npz`` on first load (Gbp-scale conversion otherwise
     costs minutes); delete the file or set BWA_TPU_NO_INDEX_CACHE to
     rebuild."""
@@ -261,7 +262,9 @@ def _resample_sa(fm: FMIndex, prefix: str | None, use_cache: bool) -> None:
     fully dense device SA (ops/fm_jax._densify_sa); here the target
     interval is the smallest of 4/8/16 whose table fits
     BWA_TPU_SA_BYTES (default ~3.5 GB — 1 Gbp lands on intv 4 as int32,
-    human scale on intv 16 as int64). Set BWA_TPU_SA_BYTES=0 to disable.
+    human scale on intv 16 as int64; a budget carried over from a 16 GB
+    part, to be re-tuned for an 80 GB card). Set BWA_TPU_SA_BYTES=0 to
+    disable.
     The result is cached beside the artifacts as <prefix>.tpu.sa<N>.npy.
     The denser table serves both the device walk and host fallbacks;
     stock-format .sa round-trips are unaffected (save_index writes

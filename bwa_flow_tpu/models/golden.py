@@ -1,7 +1,7 @@
 """Golden straight-line aligner: the single-read oracle model.
 
 Mirrors mem_align1_core + worker2 (bwa/bwamem.c:1066-1218) as a simple
-sequential pipeline. Every batched/TPU path is diffed against this model,
+sequential pipeline. Every batched/device path is diffed against this model,
 the same golden-diff strategy the reference uses (test/src/TestCommon.h:51-136
 bwa_mem)."""
 

@@ -1,7 +1,7 @@
 """Native chain-stage wrapper: batched seed chaining + filtering in C++.
 
 The chain stage (mem_chain/mem_chain_flt) is host work between two
-device stages; on TPU hosts the CPU is the scarce resource, so the hot
+device stages; the host CPU is the scarce resource, so the hot
 path runs in the _chain extension (native/_chain.cpp — a C++ port of
 ops/chain.py including the klib-introsort tie permutation). Reads the
 long-read seed-SW filter applies to (mem_flt_chained_seeds would not be

@@ -1,8 +1,8 @@
 """Device (JAX/XLA) banded Smith-Waterman seed extension — batched, exact.
 
-TPU-native replacement for the reference's hot kernel pair:
-  - scalar/SSE2 ksw_extend2 (/root/reference/bwa/ksw.c:380-479)
-  - the 20-PE HLS FPGA kernel (/root/reference/src/fpga/kernel/smithwaterman.cpp)
+Device replacement for the reference's hot kernel pair:
+  - scalar/SSE2 ksw_extend2 (bwa/ksw.c:380-479)
+  - the 20-PE HLS FPGA kernel (src/fpga/kernel/smithwaterman.cpp)
 
 Unlike the FPGA kernel (which hardcodes scoring and only matches at flagstat
 level), this implementation reproduces ksw_extend2's integer semantics
@@ -15,7 +15,8 @@ State is H/E rows of shape [B, QMAX+1] (int32) carried through a
 `lax.fori_loop` over target rows; every per-lane scalar (band bounds, maxes,
 done flags) is a [B] vector and early exits become freeze masks. The
 intra-row F dependency is a decayed prefix max computed with `lax.cummax`
-(log-depth on TPU), so each row is pure VPU work — no scalar loops.
+(log-depth), so each row is pure vector work — no scalar loops. XLA
+compiles this as it stands for the GPU; it is the only extension kernel.
 
 Output contract matches the reference task 6-tuple
 (score, qle, tle, gtle, gscore, max_off) that the FPGA path packs as

@@ -1,8 +1,8 @@
 """Golden (NumPy) FM-index primitives.
 
 Scalar-exact reimplementations of the reference's occ/extend/SA machinery
-(bwa/bwt.c:107-287) over the TPU block layout in index/fmindex.py. These are
-the oracles the JAX/Pallas ops are diffed against, and the host fallback for
+(bwa/bwt.c:107-287) over the device block layout in index/fmindex.py. These
+are the oracles the JAX ops are diffed against, and the host fallback for
 overflow reads.
 """
 

@@ -2,8 +2,8 @@
 
 Integer-exact reimplementations of:
   - ksw_extend2 (bwa/ksw.c:380-479): banded local extension with z-drop,
-    end-bonus band caps, to-end score; THE hot kernel the Pallas TPU
-    implementation is diffed against.
+    end-bonus band caps, to-end score; THE hot kernel the device
+    implementation (ops/extend_jax.py) is diffed against.
   - ksw_global2 (bwa/ksw.c:504-606): banded global alignment + traceback
     CIGAR.
   - ksw_align2 / ksw_u8 / ksw_i16 (bwa/ksw.c:111-365): striped local SW with

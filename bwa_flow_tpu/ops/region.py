@@ -6,7 +6,7 @@ Reimplements mem_chain2aln (bwa/bwamem.c:641-795), mem_sort_dedup_patch
 mem_approx_mapq_se (:967-991) and mem_reorder_primary5 (:993-1015).
 
 The ksw_extend2 calls route through an injectable extension function so the
-TPU batch path can substitute device results while everything else stays
+device batch path can substitute device results while everything else stays
 identical.
 """
 

@@ -3,7 +3,7 @@
 The reference scales across nodes with a pull-based MPI scatter of read
 batches, per-rank output directories, one Bcast and a final Barrier
 (/root/reference/src/mpi/MPIChannel.cpp:138-193, mpi_main.cpp:220-318).
-The TPU-native equivalent:
+The JAX equivalent:
 
   - `jax.distributed.initialize` forms the process group (coordinator
     address from env or flags) — replacing MPI_Init;
@@ -13,11 +13,14 @@ The TPU-native equivalent:
     match a single-host run;
   - each host runs the full align pipeline and writes its own output
     (the reference's per-rank `<host>-<pid>` dirs);
-  - cross-host reductions (stats, duplicate-signature union) ride
-    `multihost_utils.process_allgather` over ICI/DCN — replacing the
-    mutex/serialized-MPI paths. NB the reference performs markdup
-    *per rank* with no cross-rank exchange; `merge_markdup_signatures`
-    is an optional strictness improvement over it.
+  - cross-host reductions (stats, duplicate-signature union, the
+    partition check) and the final barrier ride `multihost_utils`
+    device collectives between processes — replacing the
+    mutex/serialized-MPI paths; ranks pinned to one card each
+    (CUDA_VISIBLE_DEVICES) join them like ranks on separate hosts. NB
+    the reference performs markdup *per rank* with no cross-rank
+    exchange; `merge_markdup_signatures` is an optional strictness
+    improvement over it.
 """
 
 from __future__ import annotations
@@ -345,6 +348,8 @@ def reduce_stats(stats: dict) -> dict:
 
 
 def barrier() -> None:
+    """Final Barrier (mpi_main.cpp:319-325): waits, unbounded, for every
+    process."""
     import jax
     if jax.process_count() > 1:
         from jax.experimental import multihost_utils as mhu

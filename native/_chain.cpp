@@ -6,7 +6,7 @@
 // SeqsToChains, src/Pipeline.cpp:333-406); this is a C++ port of this
 // repo's own golden Python specification (bwa_flow_tpu/ops/chain.py and
 // utils/ksort.py) — integer-exact against it, enforced by
-// tests/test_native_chain.py. Host CPUs on TPU hosts are the scarce
+// tests/test_native_chain.py. Host CPUs are the scarce
 // resource (the device outruns Python by orders of magnitude), so this
 // stage processes packed arrays with zero Python in the loop.
 //

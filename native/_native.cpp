@@ -2,7 +2,7 @@
 //
 // The reference keeps its host hot loops in C (banded Smith-Waterman,
 // /root/reference/bwa/ksw.c); this module provides the same role for the
-// TPU framework's *host-side* work: CIGAR generation (banded global
+// framework's *host-side* work: CIGAR generation (banded global
 // alignment + traceback) and the scalar extension fallback. Both are
 // C++ ports of this repo's own golden NumPy specifications
 // (bwa_flow_tpu/ops/ksw.py) — integer-exact against them, enforced by

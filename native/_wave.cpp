@@ -732,9 +732,9 @@ PyObject* py_create(PyObject*, PyObject* args) {
 // for seeds that became skippable (wasted device work, never wrong
 // output); skippability only moves toward skip as regions accumulate,
 // so the pack-time filter rarely overshoots. Wave slots are then sorted
-// by clamped DP extent: the Pallas kernel's while loop exits when a
-// 256-lane tile is all-done, so cost-homogeneous tiles stop early
-// instead of every tile paying the wave's max target length.
+// by clamped DP extent, so lanes of similar cost share a program
+// segment (the small and large shape classes) instead of every lane
+// paying the wave's max target length.
 PyObject* py_pack(PyObject*, PyObject* args) {
   PyObject* cap_o;
   int stream;

@@ -1,6 +1,6 @@
 // SA-IS suffix array construction (induced sorting), int64 indices.
 //
-// TPU-native framework's production index builder — the equivalent of the
+// framework's production index builder — the equivalent of the
 // reference's offline suffix-array/BWT construction suite
 // (/root/reference/bwa/is.c (SA-IS for short refs), bwt_gen.c:1-1629 (the
 // blockwise BWT-SW used at Gbp scale), driven by bwa/bwtindex.c:210-324).

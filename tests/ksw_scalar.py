@@ -2,7 +2,7 @@
 
 Direct, loop-for-loop restatements of the reference recurrences (cited per
 function) used to validate the vectorized golden implementations in
-bwa_flow_tpu.ops.ksw, which in turn validate the Pallas kernels."""
+bwa_flow_tpu.ops.ksw, which in turn validate the device kernels."""
 
 
 def extend2_scalar(qlen, query, tlen, target, mat, o_del, e_del, o_ins,

@@ -116,6 +116,17 @@ def oracle_mem(ref_fa, fastqs, opts: list[str] | None = None) -> list[str]:
     return r.stdout.splitlines()
 
 
+def cli_env(**extra) -> dict:
+    """Environment for a CLI subprocess: the checkout on PYTHONPATH, the
+    CPU backend, and the caller's PATH and HOME."""
+    env = {"PYTHONPATH": str(REPO),
+           "PATH": os.environ.get("PATH", "/usr/bin:/bin"),
+           "HOME": os.environ.get("HOME", str(REPO)),
+           "JAX_PLATFORMS": "cpu"}
+    env.update(extra)
+    return env
+
+
 def strip_pg(lines: list[str]) -> list[str]:
     """Drop @PG headers (program name/CL necessarily differ)."""
     return [l for l in lines if not l.startswith("@PG")]

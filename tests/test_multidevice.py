@@ -7,15 +7,11 @@ _count=8, so jax.local_devices() exposes 8 virtual devices; BatchAligner
 (n_local_devices=N) replicates the index per device and splits every
 batch into per-device shards with their own seed machines, SA walks and
 wave drivers — the reference's one-work-queue-feeding-every-PE model
-(/root/reference/src/fpga/BWAOCLEnv.h:232-269)."""
+(the reference's src/fpga/BWAOCLEnv.h:232-269)."""
 
 import numpy as np
-import pytest
 
 import oracle as orc
-
-pytestmark = pytest.mark.skipif(orc.build_oracle() is None,
-                                reason="fixture tooling unavailable")
 
 
 def _make_fixture(seed, n_reads=96, glen=30000):

@@ -1,5 +1,5 @@
 """Index shape bucketing: different genomes must share compiled device
-programs (per-genome recompiles cost minutes via remote compile)."""
+programs (a per-genome recompile of the seed machine costs minutes)."""
 
 import numpy as np
 import jax.numpy as jnp

@@ -31,7 +31,7 @@ def test_device_exception_degrades_to_host(small_index, rng, monkeypatch):
     ba = BatchAligner(opt, fm, wave_cap=32)
     monkeypatch.setattr(ba, "seeds_dispatch",
                         lambda seqs: (_ for _ in ()).throw(
-                            RuntimeError("tunnel lost")))
+                            RuntimeError("device lost")))
     ba.align_se(reads)
     assert not ba.device_ok
     assert ba.stats["device_errors"] == 1
